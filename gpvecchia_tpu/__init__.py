@@ -1,10 +1,10 @@
-"""gpvecchia_tpu: TPU-native Vecchia Gaussian-process inference.
+"""gpvecchia_tpu: Vecchia Gaussian-process inference in JAX.
 
 A from-scratch JAX/XLA implementation of the general Vecchia framework
 (Katzfuss & Guinness), Vecchia prediction, and Vecchia-Laplace inference for
 non-Gaussian data, with the capability surface of the GPvecchia R package
-re-designed for TPU hardware: batched dense kernels on the MXU, static
-shapes, host-side symbolic analysis, and mesh sharding for scale-out.
+re-designed for accelerators: batched dense kernels, static shapes,
+host-side symbolic analysis, and mesh sharding for scale-out.
 """
 
 from .spec import VecchiaSpec, vecchia_specify

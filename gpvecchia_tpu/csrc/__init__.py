@@ -1,13 +1,18 @@
 """Native host-ops: build-on-demand ctypes bindings with NumPy fallbacks.
 
-The shared library is compiled from hostops.cpp on first use (g++ -O3); if
+The shared library is compiled from hostops.cpp on first use (g++ -O3
+-march=native, for the machine that runs it) into a file named by a hash of
+the source, so an edited source is always rebuilt and a library built
+elsewhere is never loaded; the build output is not tracked by git.  If
 compilation fails (no toolchain), callers fall back to the pure-NumPy
-implementations in gpvecchia_tpu.geometry / gpvecchia_tpu.symbolic.
+implementations in gpvecchia_tpu.geometry / gpvecchia_tpu.symbolic;
+`require_lib()` turns that fallback into an error.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -16,29 +21,37 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "hostops.cpp")
-_LIB = os.path.join(_HERE, "libhostops.so")
 _lock = threading.Lock()
 _lib = None
 _tried = False
+_error = None
 
 
-def _build():
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC, "-o", _LIB]
+def _lib_path():
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    return os.path.join(_HERE, f"libhostops-{digest}.so")
+
+
+def _build(path):
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC, "-o", tmp]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, path)       # atomic: concurrent builders never see half
 
 
 def get_lib():
     """Load (building if needed) the native library; None if unavailable."""
-    global _lib, _tried
+    global _lib, _tried, _error
     with _lock:
         if _lib is not None or _tried:
             return _lib
         _tried = True
         try:
-            if (not os.path.exists(_LIB)
-                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-                _build()
-            lib = ctypes.CDLL(_LIB)
+            path = _lib_path()
+            if not os.path.exists(path):
+                _build(path)
+            lib = ctypes.CDLL(path)
             i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
             f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
             u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
@@ -58,9 +71,21 @@ def get_lib():
             lib.solve_levels_fwd.argtypes = [i64p, i64p, ctypes.c_int64, i64p]
             lib.solve_levels_bwd.argtypes = [i64p, i64p, ctypes.c_int64, i64p]
             _lib = lib
-        except Exception:
+        except Exception as e:
             _lib = None
+            _error = e
         return _lib
+
+
+def require_lib():
+    """The native library, or RuntimeError if it cannot be built/loaded."""
+    lib = get_lib()
+    if lib is None:
+        detail = getattr(_error, "stderr", b"") or b""
+        raise RuntimeError(
+            f"native host library unavailable ({_error!r}): "
+            f"{detail.decode(errors='replace')[-2000:]}")
+    return lib
 
 
 def maxmin_exact(locs: np.ndarray) -> np.ndarray | None:

@@ -9,9 +9,10 @@
 //   * sgv_select       — SGV latent/response conditioning choice
 //                        (/root/reference/R/whichCondOnLatent.R:2-27)
 //   * symbolic_chol    — row-pattern symbolic Cholesky (Liu's algorithm)
-//                        feeding the TPU numeric factorization plans
+//                        feeding the device numeric factorization plans
 //
-// Build: g++ -O3 -march=native -shared -fPIC hostops.cpp -o libhostops.so
+// Built on first use by csrc/__init__.py:
+//   g++ -O3 -march=native -shared -fPIC hostops.cpp -o libhostops-<hash>.so
 
 #include <algorithm>
 #include <cmath>

@@ -7,7 +7,7 @@ gradients of the Vecchia loglikelihood.  Everything jits; chains are an
 embarrassingly parallel vmap axis that `sample_posterior` shards across the
 'chains' axis of a device mesh (BASELINE.md config 5).
 
-TPU-first design:
+Design:
   * the whole sampler is one lax.scan over draws -> a single compiled program,
     no host round-trips between transitions;
   * dynamic trajectory length via the no-U-turn criterion evaluated along a
@@ -42,8 +42,8 @@ def _kinetic(r, inv_mass):
 
 def _uturn(theta_plus, theta_minus, r_plus, r_minus, inv_mass):
     d = theta_plus - theta_minus
-    return ((jnp.dot(d, inv_mass * r_plus) < 0)
-            | (jnp.dot(d, inv_mass * r_minus) < 0))
+    return ((jnp.sum(d * inv_mass * r_plus) < 0)
+            | (jnp.sum(d * inv_mass * r_minus) < 0))
 
 
 def _nuts_transition(logpost_fn, grad_fn, key, theta0, eps, inv_mass,
@@ -109,7 +109,7 @@ def _nuts_transition(logpost_fn, grad_fn, key, theta0, eps, inv_mass,
             stk_r = jnp.where(save[:, None], r[None, :], stk_r)
             check = ((i + 1) % scales) == 0
             dth = (th[None, :] - stk_th) * dirsgn             # (S, dim)
-            d_end = dth @ (inv_mass * r)                      # (S,)
+            d_end = jnp.sum(dth * (inv_mass * r), axis=-1)   # (S,)
             d_beg = jnp.sum(dth * (inv_mass * stk_r), axis=-1)
             bad = bad | jnp.any(check & ((d_end < 0) | (d_beg < 0)))
             # progressive multinomial within the new subtree

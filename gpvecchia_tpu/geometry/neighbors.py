@@ -8,7 +8,7 @@ Reference parity targets (behavior, not code):
   - GpGp::find_ordered_nn used at /root/reference/R/vecchia_specify.R:159
   - findOrderedNN_kdtree2 at /root/reference/R/NN_kdtree.R:36-68 (1-D case)
 
-TPU design note: this runs once per geometry on the host.  The chunked
+Design note: this runs once per geometry on the host.  The chunked
 algorithm is exact: for a chunk [a, b), neighbors among [0, a) come from a
 cKDTree query (k = m), and neighbors inside the chunk [a, i) come from a
 brute-force pass; the two candidate sets are merged by distance.

@@ -1,6 +1,6 @@
 """Point orderings for Vecchia approximations (host-side, NumPy).
 
-TPU-native design note: orderings are inherently sequential greedy algorithms
+Design note: orderings are inherently sequential greedy algorithms
 and run ONCE per geometry, so they live on the host.  The exact maximum-minimum
 distance ordering is implemented with a lazy max-heap + periodic cKDTree
 rebuilds, which is exact and quasilinear in practice.

@@ -26,6 +26,8 @@ from .likelihood import (_device_arrays, _dispatch_covmodel, _mf_denominator,
 
 __all__ = ["vecchia_prediction", "vecchia_lincomb", "V2covmat"]
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def _posterior_core(plan, kernel_fn, covmat, dev, z, covparms, nuggets,
                     sel=None):
@@ -40,8 +42,7 @@ def _posterior_core(plan, kernel_fn, covmat, dev, z, covparms, nuggets,
                          nug_point, kernel_fn, covparms, covmat=covmat,
                          sel=sel, pdist=dev.get("pdist"),
                          nbr_pts=dev.get("nbr_pts"),
-                         row_chunks=plan.compiled.get("u_row_chunks", 1),
-                         fused=dev.get("fused"))
+                         row_chunks=plan.compiled.get("u_row_chunks", 1))
     # a dropped (non-SPD) row contributes NOTHING to the posterior precision
     # W/V assembly — zeroing here mirrors col_w in _loglik_core so likelihood
     # and prediction imply the same model when drops occur (the e0 stand-in
@@ -284,7 +285,7 @@ def vecchia_lincomb(H, spec, v_flat, cov_mat=False):
 
         temp = jax.vmap(one)(jnp.asarray(Hv, dtype))
         if cov_mat:
-            return np.asarray(temp @ temp.T)
+            return np.asarray(jnp.matmul(temp, temp.T, precision=_HIGHEST))
         return np.asarray(jnp.sum(temp * temp, axis=1))
 
     # columns to reversed latent order: rev of ordered sequence
@@ -297,7 +298,7 @@ def vecchia_lincomb(H, spec, v_flat, cov_mat=False):
 
     temp = jax.vmap(one)(jnp.asarray(Ht))   # (k, n_lat)
     if cov_mat:
-        return np.asarray(temp @ temp.T)
+        return np.asarray(jnp.matmul(temp, temp.T, precision=_HIGHEST))
     return np.asarray(jnp.sum(temp * temp, axis=1))
 
 

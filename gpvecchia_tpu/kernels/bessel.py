@@ -1,7 +1,7 @@
 """Modified Bessel function of the second kind, K_nu, in pure JAX.
 
 Differentiable in both order and argument; fixed iteration counts so the whole
-thing jits to straight-line TPU code (no data-dependent shapes).
+thing jits to straight-line device code (no data-dependent shapes).
 
 Algorithm (standard Temme/Steed structure, cf. Temme 1975 and the classic
 bessik routine): write nu = mu + k with mu in [-1/2, 1/2] and integer k >= 0;
@@ -12,7 +12,7 @@ then climb to K_nu with the ratio recurrence r_{j+1} = 2(mu+j)/x + 1/r_j
 accumulated in log space (stable for small x / large nu).
 
 This replaces the reference's Boost call (/root/reference/src/Matern.cpp:72-84)
-with a TPU-friendly, AD-capable implementation.
+with a jit-friendly, AD-capable implementation.
 """
 
 from __future__ import annotations

@@ -1,13 +1,9 @@
 """Batched dense Cholesky / triangular-solve wrappers.
 
-Thin wrappers over XLA's native batched kernels with HIGHEST matmul
-precision (bf16x3 on TPU — the multifrontal factor loses ~0.2% of the
-logdet below that and NaNs at pure-bf16).  A hand-blocked 2x2 GEMM
-recursion lived here through round 3; it measured EQUAL to the native
-kernels at every (batch, size) the multifrontal tree produces and 5-25x
-slower to compile, so it was removed (round-4 cleanup).  The TPU fast path
-for the batch/size regime where XLA's native kernels are slow is the
-Pallas frontal kernel (linalg/pallas_frontal.py), not a jnp recursion.
+Thin wrappers over XLA's native batched kernels (cuSOLVER / cuBLAS on the
+GPU, LAPACK on the CPU) with HIGHEST matmul precision, so an f32 product is
+never taken in TF32 or bf16: the multifrontal factor loses digits of its
+logdet below that.
 
 Replaces the role of LAPACK chol/solve inside the reference's hot loops
 (/root/reference/src/U_NZentries.cpp:60-63 and the Matrix-package sparse
@@ -53,50 +49,14 @@ def trsm_rightT(B, L):
             L, B, left_side=False, lower=True, transpose_a=False)
 
 
-# XLA's triangular_solve inverts the diagonal blocks of L in a scoped VMEM
-# buffer whose size scales with batch x P^2; past ~1024 x 86^2 f32 that
-# exceeds the 16 MB scoped limit and the compile FAILS when the solve sits
-# inside a while/scan body (where XLA cannot split the custom call).  The
-# vector solves ride inside the VL Newton loop and the bucketed level
-# scans, so chunk their leading batch axis below the limit; the matrix
-# trsm of the factor path never compiles inside a loop body and is left
-# whole.
-_SCOPED_VMEM_SAFE = 8 * 2 ** 20
-
-
-def _vec_solve_chunks(L):
-    if L.ndim < 3:
-        return 1
-    nb = 1
-    for s in L.shape[:-2]:
-        nb *= s
-    P = L.shape[-1]
-    Pp = -(-P // 8) * 8
-    Pl = -(-P // 128) * 128
-    bytes_ = nb * Pp * Pl * 4
-    k = 1
-    while bytes_ // k > _SCOPED_VMEM_SAFE and k < nb:
-        k *= 2
-    return k
-
-
-def _chunked_vec_solve(solve, L, b):
-    k = _vec_solve_chunks(L)
-    if k == 1 or L.shape[0] % k != 0:
-        return solve(b[..., None, :], L)[..., 0, :]
-    outs = [solve(bc[..., None, :], Lc)[..., 0, :]
-            for Lc, bc in zip(jnp.split(L, k), jnp.split(b, k))]
-    return jnp.concatenate(outs)
-
-
 def lower_solve_vec(L, b):
     """Solve L y = b; b (..., P)."""
-    return _chunked_vec_solve(trsm_right, L, b)
+    return trsm_right(b[..., None, :], L)[..., 0, :]
 
 
 def upper_solve_vec(L, b):
     """Solve L^T x = b; b (..., P)."""
-    return _chunked_vec_solve(trsm_rightT, L, b)
+    return trsm_rightT(b[..., None, :], L)[..., 0, :]
 
 
 def tri_inv_lower(L):

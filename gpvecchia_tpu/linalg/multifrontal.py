@@ -11,7 +11,7 @@ common ancestor of the leaves whose elements touch them, and the factorization
 proceeds level-by-level from the leaves:
 
   * leaf fronts assemble their elements as localized dense columns U_loc and
-    one batched GEMM  front = U_loc U_loc^T   (MXU work),
+    one batched GEMM  front = U_loc U_loc^T,
   * internal fronts extend-add their two children's Schur updates with static
     gather maps (scatter-free),
   * each level runs ONE batched blocked dense Cholesky + TRSM + SYRK
@@ -19,7 +19,7 @@ proceeds level-by-level from the leaves:
 
 This replaces the reference's sequential sparse Cholesky `Matrix::chol` /
 `ic0` hot spot (/root/reference/R/vecchia_prediction.R:74-84,
-/root/reference/src/ic0.cpp:43-64) with ~log2(n) levels of dense batched MXU
+/root/reference/src/ic0.cpp:43-64) with ~log2(n) levels of dense batched
 compute; the right-hand side z2 = U_y z1 is never materialized globally —
 per-leaf partial RHS vectors b = U_loc z1 ride the same tree, so the former
 scatter/gather pair-product schedules disappear from the hot path entirely.
@@ -38,13 +38,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import os
-
 from .blocked import (chol, lower_solve_vec, tri_inv_lower, trsm_right,
                       upper_solve_vec)
-from .pallas_eadd import eadd_fits_vmem, eadd_fronts
-from .pallas_frontal import factor_fronts, fits_vmem
-from . import pallas_level as PL
+from ..utils.runtime import memory_budget
 
 __all__ = ["MFPlan", "build_mf_plan", "mf_device_arrays", "mf_factor",
            "mf_forward", "mf_backward", "mf_solve", "mf_selinv_diag"]
@@ -309,32 +305,18 @@ class MFStatic:
     x_offsets: tuple
     x_size: int
     n_vert: int
-    fused_T: tuple = ()       # per-depth panel count for the FULLY fused
-                              # kernel (0 = not fused; leaf: 1 = fused)
-    asm_T: tuple = ()         # per-depth panel count for the assembly-only
-                              # kernel (big fronts; 0 = no kernel plan)
 
 
-def mf_device_arrays(mf: MFPlan, fused=None):
+def mf_device_arrays(mf: MFPlan):
     """(static, arrays): shape metadata + jnp index-array pytree.
 
     `arrays` contains only jnp arrays (and Nones) and must be passed through
     the caller's jit boundary as an ARGUMENT; `static` holds Python ints used
     for slicing and must be closed over.
-
-    On TPU (fused=None autodetects) each level that fits VMEM also carries
-    the fused-kernel panel plans (linalg/pallas_level.py): `pl_starts` /
-    `pl_rel` for internal levels, `elem_pt_p` / `epos_aug` for the leaf.
     """
-    if fused is None:
-        fused = jax.default_backend() == "tpu" and not os.environ.get(
-            "GPV_NO_PALLAS")
-    D = mf.depth
     out = []
-    fused_T = [0] * (D + 1)
-    asm_T = [0] * (D + 1)
-    for d, lv in enumerate(mf.levels):
-        entry = dict(
+    for lv in mf.levels:
+        out.append(dict(
             piv_ids=jnp.asarray(lv.piv_ids),
             ext=None if lv.ext is None else jnp.asarray(lv.ext),
             bip=(None if lv.bord_in_parent is None
@@ -344,44 +326,12 @@ def mf_device_arrays(mf: MFPlan, fused=None):
             elem_pt=None if lv.elem_pt is None else jnp.asarray(lv.elem_pt),
             elem_pos=(None if lv.elem_pos is None
                       else jnp.asarray(lv.elem_pos)),
-        )
-        P, B = lv.npiv, lv.nbord
-        B1 = B + 1
-        F1 = P + B1
-        if fused and d == D and lv.elem_pt is not None:
-            EL, K = lv.elem_pos.shape[1:]
-            if PL.leaf_fits_vmem(P, B1, EL, K) and P > 0:
-                ELp = PL._ru(EL, 8)
-                ept_p = np.full((lv.elem_pt.shape[0], ELp), -1, np.int32)
-                ept_p[:, :EL] = lv.elem_pt
-                # TRANSPOSED (N, K+1, ELp) layout: the kernel streams one
-                # k-row per fori step (dynamic sublane)
-                epos_aug = np.full((lv.elem_pt.shape[0], K + 1, ELp), -1,
-                                   np.int32)
-                epos_aug[:, :K, :EL] = np.swapaxes(lv.elem_pos, 1, 2)
-                epos_aug[:, K, :EL] = np.where(lv.elem_pt >= 0, F1 - 1, -1)
-                entry["elem_pt_p"] = jnp.asarray(ept_p)
-                entry["epos_aug"] = jnp.asarray(epos_aug)
-                fused_T[d] = 1
-        elif fused and d < D and lv.ext is not None and P > 0:
-            Bc1 = mf.levels[d + 1].nbord + 1
-            N = lv.ext.shape[0]
-            ext_aug = np.full((N, 2, F1), -1, np.int32)
-            ext_aug[:, :, :P + B] = lv.ext
-            ext_aug[:, :, F1 - 1] = Bc1 - 1
-            starts, rel, T, _ = PL.level_kernel_plan(ext_aug, Bc1)
-            entry["pl_starts"] = jnp.asarray(starts)
-            entry["pl_rel"] = jnp.asarray(rel)
-            asm_T[d] = T
-            if PL.level_fits_vmem(P, B1, Bc1):
-                fused_T[d] = T
-        out.append(entry)
+        ))
     static = MFStatic(depth=mf.depth,
                       npiv=tuple(lv.npiv for lv in mf.levels),
                       nbord=tuple(lv.nbord for lv in mf.levels),
                       x_offsets=tuple(int(o) for o in mf.x_offsets),
-                      x_size=int(mf.x_size), n_vert=int(mf.n_vert),
-                      fused_T=tuple(fused_T), asm_T=tuple(asm_T))
+                      x_size=int(mf.x_size), n_vert=int(mf.n_vert))
     arrays = dict(levels=out, x_slot=jnp.asarray(mf.x_slot))
     return static, arrays
 
@@ -455,8 +405,7 @@ def _extend_add_mat(lvdev, F, upd, dt):
 
     Implemented as two ROW-granular gathers with a transpose in between
     (updr is symmetric, so gathering rows twice lands the (f1, f2) entry at
-    updr[g[f1], g[f2]]): TPUs gather whole rows at near-HBM bandwidth, while
-    per-scalar two-axis gathers serialize element by element.
+    updr[g[f1], g[f2]]).
     """
     N = lvdev["piv_ids"].shape[0]
     Bc = upd.shape[-1]
@@ -500,17 +449,7 @@ def _piv_gather(lvdev, vec, fill, F, dt):
 
 
 def _factor_level(front, P, B):
-    """(L_pp, L_bp) for one level's fronts.
-
-    TPU fronts that fit VMEM use the Pallas frontal kernel
-    (linalg/pallas_frontal.py) — XLA's batched cholesky/triangular_solve
-    While-loops run at ~0.1 TF/s on these shapes (420 ms for the leaf level
-    alone at n=1e6/m=40); elsewhere the XLA native path is used.
-    """
-    F = front.shape[-1]
-    if (jax.default_backend() == "tpu" and P > 0 and fits_vmem(F, P)
-            and not os.environ.get("GPV_NO_PALLAS")):
-        return factor_fronts(front, P)
+    """(L_pp, L_bp) for one level's fronts: batched cholesky + trsm."""
     L_pp = chol(front[:, :P, :P])
     if B > 0:
         L_bp = trsm_right(front[:, P:, :P], L_pp)
@@ -547,211 +486,110 @@ def mf_factor(static, mfdev, u_vals, dvec, rhs_elem=None, rhs_vert=None,
     quad = jnp.zeros((), dt)
     upd = None
     bupd = None
-    aug = None          # augmented fused-chain Schur carry (N, B1p, B1)
-    fuse_on = (jax.default_backend() == "tpu" and dt == jnp.float32
-               and not os.environ.get("GPV_NO_PALLAS"))
-    stop_d = int(os.environ.get("GPV_MF_STOP", -1))  # profiling only
     for d in range(D, -1, -1):
-        if d < stop_d:
-            # profiling cutoff: consume the carry so the partial result
-            # depends on every level computed so far
-            if aug is not None:
-                logdet = logdet + 1e-30 * jnp.sum(aug[:, 0, 0])
-            elif upd is not None:
-                logdet = logdet + 1e-30 * jnp.sum(upd[:, 0, 0])
-            break
-        lv = levels[d]
-        P = static.npiv[d]
-        B = static.nbord[d]
-        F = P + B
-        N = lv["piv_ids"].shape[0]
-        B1 = B + 1
-        F1 = F + 1
+        with jax.named_scope(f"mf_level_{d}"):
+            lv = levels[d]
+            P = static.npiv[d]
+            B = static.nbord[d]
+            F = P + B
+            N = lv["piv_ids"].shape[0]
 
-        # ---- fused Pallas chain: extend-add/assembly + factor + Schur in
-        # one VMEM-resident kernel per level (linalg/pallas_level.py); the
-        # RHS rides as an augmented border row, so y falls out of L_bp ----
-        fused_here = (fuse_on and static.fused_T[d] > 0
-                      and (d == D or aug is not None))
-        if fused_here and d == D and "epos_aug" in lv:
-            F1p = PL._ru(F1, PL._TE)
-            dfull = _piv_gather(lv, dvec, 1.0, F, dt)
-            dia = jnp.zeros((N, 8, F1p), dt).at[:, 0, :F].set(dfull)
-            if want_rhs and rhs_vert is not None:
-                dia = dia.at[:, 1, :F].set(_piv_gather(lv, rhs_vert, 0.0,
-                                                       F, dt))
-            ept = lv["elem_pt_p"]
-            uu = jnp.where((ept >= 0)[..., None],
-                           u_vals[jnp.clip(ept, 0)], 0.0).astype(dt)
-            if rhs_elem is not None:
-                re = jnp.where(ept >= 0, rhs_elem[jnp.clip(ept, 0)],
-                               0.0).astype(dt)
+            if d == D:
+                nchunk = (leaf_chunks
+                          if leaf_chunks > 1 and N % leaf_chunks == 0 else 1)
+                if nchunk > 1:
+                    # sequential leaf chunks bound the (N, EL, F) localized
+                    # column intermediate (3.5 GB at n=1e6/m=40 otherwise);
+                    # assembly, diagonal add AND factorization run per
+                    # chunk, so the full (N, F, F) leaf front (5.6 GB) never
+                    # materializes — only the factor outputs persist
+                    ept_r = lv["elem_pt"].reshape(nchunk, N // nchunk, -1)
+                    epos_r = lv["elem_pos"].reshape(
+                        nchunk, N // nchunk, ept_r.shape[-1], -1)
+                    piv_r = lv["piv_ids"].reshape(nchunk, N // nchunk, -1)
+
+                    def leaf_body(args):
+                        ch = dict(elem_pt=args[0], elem_pos=args[1],
+                                  piv_ids=args[2])
+                        ul = _leaf_uloc(ch, F, u_vals, dt)
+                        fr = jnp.einsum("nef,neg->nfg", ul, ul,
+                                        precision=_PREC)
+                        df = _piv_gather(ch, dvec, 1.0, F, dt)
+                        fr = fr + df[:, :, None] * jnp.eye(F, dtype=dt)
+                        if rhs_elem is not None:
+                            re = _gather_elem(ch, rhs_elem, dt)
+                            bb = jnp.einsum("nef,ne->nf", ul, re,
+                                            precision=_PREC)
+                        else:
+                            bb = jnp.zeros((ul.shape[0], F), dt)
+                        if want_rhs and rhs_vert is not None:
+                            bb = bb + _piv_gather(ch, rhs_vert, 0.0, F, dt)
+                        Lpp_c, Lbp_c = _factor_level(fr, P, B)
+                        if want_rhs:
+                            y_c = lower_solve_vec(Lpp_c, bb[:, :P])
+                        else:
+                            y_c = jnp.zeros((ul.shape[0], 0), dt)
+                        upd_c = fr[:, P:, P:] - jnp.einsum(
+                            "nbp,ncp->nbc", Lbp_c, Lbp_c, precision=_PREC)
+                        bupd_c = bb[:, P:] - (jnp.einsum(
+                            "nbp,np->nb", Lbp_c, y_c, precision=_PREC)
+                            if want_rhs else 0.0)
+                        return Lpp_c, Lbp_c, y_c, upd_c, bupd_c
+
+                    Lpp_s, Lbp_s, y_s, upd_s, bupd_s = jax.lax.map(
+                        leaf_body, (ept_r, epos_r, piv_r))
+                    L_pp = Lpp_s.reshape(N, P, P)
+                    L_bp = Lbp_s.reshape(N, B, P)
+                    dg = jnp.diagonal(L_pp, axis1=-2, axis2=-1)
+                    logdet = logdet + 2.0 * jnp.sum(jnp.log(dg))
+                    out["L_pp"][d] = L_pp
+                    out["L_bp"][d] = L_bp
+                    upd = upd_s.reshape(N, B, B)
+                    bupd = bupd_s.reshape(N, B)
+                    if want_rhs:
+                        y = y_s.reshape(N, P)
+                        out["y"][d] = y
+                        quad = quad + jnp.sum(y * y)
+                    continue
+                else:
+                    u_loc = _leaf_uloc(lv, F, u_vals, dt)
+                    front = jnp.einsum("nef,neg->nfg", u_loc, u_loc,
+                                       precision=_PREC)
+                    if want_rhs:
+                        b = jnp.zeros((N, F), dt)
+                        if rhs_elem is not None:
+                            re = _gather_elem(lv, rhs_elem, dt)
+                            b = b + jnp.einsum("nef,ne->nf", u_loc, re,
+                                               precision=_PREC)
             else:
-                re = jnp.zeros(ept.shape, dt)
-            # transposed (N, K+1, ELp) layout (see _leaf_kernel)
-            u_in = jnp.concatenate(
-                [jnp.swapaxes(uu, 1, 2), re[:, None, :]], axis=1)
-            L_pp, L_bp_aug, aug = PL.fused_leaf(u_in, lv["epos_aug"], dia,
-                                                P, B1, F1)
-        elif fused_here and d < D and "pl_starts" in lv:
-            F1p = PL._ru(F1, PL._TE)
-            Bc1 = static.nbord[d + 1] + 1
-            dfull = _piv_gather(lv, dvec, 1.0, F, dt)
-            dia = jnp.zeros((N, 8, F1p), dt).at[:, 0, :F].set(dfull)
-            if want_rhs and rhs_vert is not None:
-                dia = dia.at[:, 1, :F].set(_piv_gather(lv, rhs_vert, 0.0,
-                                                       F, dt))
-            ch = aug.reshape(N, 2, aug.shape[-2], aug.shape[-1])
-            L_pp, L_bp_aug, aug = PL.fused_level(
-                ch, lv["pl_starts"], lv["pl_rel"], dia, P, B1, Bc1, F1,
-                static.fused_T[d])
-        elif (fuse_on and aug is not None and d < D
-              and static.asm_T[d] > 0 and "pl_starts" in lv):
-            # assembly kernel builds the augmented front in HBM (too big
-            # for the fully fused kernel); factor + Schur stay in XLA
-            F1p = PL._ru(F1, PL._TE)
-            Bc1 = static.nbord[d + 1] + 1
-            dfull = _piv_gather(lv, dvec, 1.0, F, dt)
-            rv = (_piv_gather(lv, rhs_vert, 0.0, F, dt)
-                  if (want_rhs and rhs_vert is not None)
-                  else jnp.zeros((N, F), dt))
-            dia = (jnp.zeros((N, 8, F1p), dt)
-                   .at[:, 0, :F].set(dfull).at[:, 1, :F].set(rv))
-            diaT = (jnp.zeros((N, F1p, 8), dt)
-                    .at[:, :F, 0].set(dfull).at[:, :F, 1].set(rv))
-            ch = aug.reshape(N, 2, aug.shape[-2], aug.shape[-1])
-            frontp = PL.assemble_fronts(ch, lv["pl_starts"], lv["pl_rel"],
-                                        dia, diaT, Bc1, F1,
-                                        static.asm_T[d])
-            frontc = frontp[:, :F1, :F1]
-            L_pp, L_bp_aug = _factor_level(frontc, P, B1)
-            upd_a = frontc[:, P:, P:] - jnp.einsum(
-                "nbp,ncp->nbc", L_bp_aug, L_bp_aug, precision=_PREC)
-            B1p = PL._ru(B1, 8)
-            aug = jnp.concatenate(
-                [upd_a, jnp.zeros((N, B1p - B1, B1), dt)], axis=1)                 if B1p > B1 else upd_a
-        else:
-            L_pp = L_bp_aug = None
+                front = _extend_add_mat(lv, F, upd, dt)
+                if want_rhs:
+                    b = _extend_add_vec(lv, F, bupd, dt)
 
-        if L_pp is not None:
+            dfull = _piv_gather(lv, dvec, 1.0, F, dt)
+            front = front + dfull[:, :, None] * jnp.eye(F, dtype=dt)
+            if want_rhs and rhs_vert is not None:
+                b = b + _piv_gather(lv, rhs_vert, 0.0, F, dt)
+
+            L_pp, L_bp = _factor_level(front, P, B)
             dg = jnp.diagonal(L_pp, axis1=-2, axis2=-1)
             logdet = logdet + 2.0 * jnp.sum(jnp.log(dg))
             out["L_pp"][d] = L_pp
-            out["L_bp"][d] = L_bp_aug[:, :B, :]
             if want_rhs:
-                y = L_bp_aug[:, B, :]
+                y = lower_solve_vec(L_pp, b[:, :P])
                 out["y"][d] = y
                 quad = quad + jnp.sum(y * y)
-            continue
-
-        if aug is not None:
-            # leave the fused chain: unpack the augmented Schur carry
-            Bc = static.nbord[d + 1]
-            upd = aug[:, :Bc, :Bc]
-            bupd = aug[:, Bc, :Bc]
-            aug = None
-
-        if d == D:
-            nchunk = leaf_chunks if (leaf_chunks > 1 and N % leaf_chunks == 0) \
-                else 1
-            if nchunk > 1:
-                # sequential leaf chunks bound the (N, EL, F) localized-column
-                # intermediate (3.5 GB at the n=1e6/m=40 config otherwise);
-                # assembly, diagonal add AND factorization run per chunk, so
-                # the full (N, F, F) leaf front (5.6 GB) never materializes —
-                # only the factor outputs persist
-                ept_r = lv["elem_pt"].reshape(nchunk, N // nchunk, -1)
-                epos_r = lv["elem_pos"].reshape(
-                    nchunk, N // nchunk, ept_r.shape[-1], -1)
-                piv_r = lv["piv_ids"].reshape(nchunk, N // nchunk, -1)
-
-                def leaf_body(args):
-                    ch = dict(elem_pt=args[0], elem_pos=args[1],
-                              piv_ids=args[2])
-                    ul = _leaf_uloc(ch, F, u_vals, dt)
-                    fr = jnp.einsum("nef,neg->nfg", ul, ul, precision=_PREC)
-                    df = _piv_gather(ch, dvec, 1.0, F, dt)
-                    fr = fr + df[:, :, None] * jnp.eye(F, dtype=dt)
-                    if rhs_elem is not None:
-                        re = _gather_elem(ch, rhs_elem, dt)
-                        bb = jnp.einsum("nef,ne->nf", ul, re, precision=_PREC)
-                    else:
-                        bb = jnp.zeros((ul.shape[0], F), dt)
-                    if want_rhs and rhs_vert is not None:
-                        bb = bb + _piv_gather(ch, rhs_vert, 0.0, F, dt)
-                    Lpp_c, Lbp_c = _factor_level(fr, P, B)
-                    if want_rhs:
-                        y_c = lower_solve_vec(Lpp_c, bb[:, :P])
-                    else:
-                        y_c = jnp.zeros((ul.shape[0], 0), dt)
-                    upd_c = fr[:, P:, P:] - jnp.einsum(
-                        "nbp,ncp->nbc", Lbp_c, Lbp_c, precision=_PREC)
-                    bupd_c = bb[:, P:] - (jnp.einsum(
-                        "nbp,np->nb", Lbp_c, y_c, precision=_PREC)
-                        if want_rhs else 0.0)
-                    return Lpp_c, Lbp_c, y_c, upd_c, bupd_c
-
-                Lpp_s, Lbp_s, y_s, upd_s, bupd_s = jax.lax.map(
-                    leaf_body, (ept_r, epos_r, piv_r))
-                L_pp = Lpp_s.reshape(N, P, P)
-                L_bp = Lbp_s.reshape(N, B, P)
-                dg = jnp.diagonal(L_pp, axis1=-2, axis2=-1)
-                logdet = logdet + 2.0 * jnp.sum(jnp.log(dg))
-                out["L_pp"][d] = L_pp
+            if B > 0:
                 out["L_bp"][d] = L_bp
-                upd = upd_s.reshape(N, B, B)
-                bupd = bupd_s.reshape(N, B)
+                upd = front[:, P:, P:] - jnp.einsum("nbp,ncp->nbc", L_bp, L_bp,
+                                                    precision=_PREC)
                 if want_rhs:
-                    y = y_s.reshape(N, P)
-                    out["y"][d] = y
-                    quad = quad + jnp.sum(y * y)
-                continue
+                    bupd = b[:, P:] - jnp.einsum("nbp,np->nb", L_bp, y,
+                                                 precision=_PREC)
             else:
-                u_loc = _leaf_uloc(lv, F, u_vals, dt)
-                front = jnp.einsum("nef,neg->nfg", u_loc, u_loc,
-                                   precision=_PREC)
-                if want_rhs:
-                    b = jnp.zeros((N, F), dt)
-                    if rhs_elem is not None:
-                        re = _gather_elem(lv, rhs_elem, dt)
-                        b = b + jnp.einsum("nef,ne->nf", u_loc, re,
-                                           precision=_PREC)
-        else:
-            Bc = upd.shape[-1]
-            if (jax.default_backend() == "tpu" and Bc > 0
-                    and eadd_fits_vmem(F, Bc)
-                    and not os.environ.get("GPV_NO_PALLAS")):
-                upd2 = upd.reshape(N, 2, Bc, Bc)
-                front = eadd_fronts(upd2, lv["ext"], F)
-            else:
-                front = _extend_add_mat(lv, F, upd, dt)
-            if want_rhs:
-                b = _extend_add_vec(lv, F, bupd, dt)
-
-        dfull = _piv_gather(lv, dvec, 1.0, F, dt)
-        front = front + dfull[:, :, None] * jnp.eye(F, dtype=dt)
-        if want_rhs and rhs_vert is not None:
-            b = b + _piv_gather(lv, rhs_vert, 0.0, F, dt)
-
-        L_pp, L_bp = _factor_level(front, P, B)
-        dg = jnp.diagonal(L_pp, axis1=-2, axis2=-1)
-        logdet = logdet + 2.0 * jnp.sum(jnp.log(dg))
-        out["L_pp"][d] = L_pp
-        if want_rhs:
-            y = lower_solve_vec(L_pp, b[:, :P])
-            out["y"][d] = y
-            quad = quad + jnp.sum(y * y)
-        if B > 0:
-            out["L_bp"][d] = L_bp
-            upd = front[:, P:, P:] - jnp.einsum("nbp,ncp->nbc", L_bp, L_bp,
-                                                precision=_PREC)
-            if want_rhs:
-                bupd = b[:, P:] - jnp.einsum("nbp,np->nb", L_bp, y,
-                                             precision=_PREC)
-        else:
-            out["L_bp"][d] = jnp.zeros((N, 0, P), dt)
-            upd = jnp.zeros((N, 0, 0), dt)
-            bupd = jnp.zeros((N, 0), dt)
+                out["L_bp"][d] = jnp.zeros((N, 0, P), dt)
+                upd = jnp.zeros((N, 0, 0), dt)
+                bupd = jnp.zeros((N, 0), dt)
     out["logdet"] = logdet
     if want_rhs:
         out["quad"] = quad
@@ -865,8 +703,10 @@ def mf_selinv_diag(static, mfdev, fac, leaf_chunks=None):
         if d == D and B > 0 and d > 0:
             # final level: diagonal only, in bounded node chunks
             if leaf_chunks is None:
+                cap = memory_budget()["selinv_chunk"]
+                nbytes = N * F * F * jnp.dtype(dt).itemsize
                 nchunk = 1
-                while N * F * F * 4 // nchunk > 400_000_000 and nchunk < N:
+                while nbytes // nchunk > cap and nchunk < N:
                     nchunk *= 2
             else:
                 nchunk = leaf_chunks

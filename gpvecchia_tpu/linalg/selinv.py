@@ -101,7 +101,9 @@ def selected_inverse(v_flat, levels, n_nnz):
         if ps.shape[-1] > 0:
             Zsub = jnp.where(ps >= 0, z_flat[jnp.clip(ps, 0)], 0.0)
             lcol = vvals[:, 1:]
-            offd = -jnp.einsum("bki,bk->bi", Zsub, lcol) / diag[:, None]
+            offd = -jnp.einsum("bki,bk->bi", Zsub, lcol,
+                               precision=jax.lax.Precision.HIGHEST
+                               ) / diag[:, None]
             offd = jnp.where(ok[:, 1:], offd, 0.0)
             # Z[j,j] = 1/L_jj^2 - (1/L_jj) sum_k L[a_k,j] Z[a_k,j]
             zdiag = 1.0 / (diag * diag) - jnp.sum(lcol * offd, axis=1) / diag

@@ -4,7 +4,7 @@ JAX's `mode="drop"` drops only *out-of-bounds* indices; -1 is in-bounds
 (NumPy wrap semantics) and would silently corrupt the last element.  These
 helpers rewrite negative pad indices to an out-of-bounds sentinel first.
 
-`pair_sum` is the TPU-native replacement for scatter-add with colliding
+`pair_sum` is the replacement for scatter-add with colliding
 indices (which XLA serializes): the host transposes each scatter map into
 per-target gather lists padded by count class (plan.py _build_pair_sum), so
 the device does gathers + dense reductions + unique-index writes only.

@@ -3,9 +3,10 @@
 The reference's only parallelism is one OpenMP loop over U rows
 (/root/reference/src/U_NZentries.cpp:37); here the row dimension of every
 batched kernel shards across a device mesh, with XLA inserting the
-collectives (scatter-adds across shards -> reduce; loglik terms -> psum over
-ICI).  A second mesh axis runs independent hyperparameter evaluations
-(chains) in parallel — a capability the reference does not have.
+collectives (scatter-adds across shards -> reduce; loglik terms -> psum
+over the device interconnect).  A second mesh axis runs independent
+hyperparameter evaluations (chains) in parallel — a capability the
+reference does not have.
 """
 
 from __future__ import annotations
@@ -53,17 +54,6 @@ def _pad_rows(plan, dev, n_dev):
             widths = [(0, pad)] + [(0, 0)] * (a.ndim - 1)
             fill = False if a.dtype == bool else (-1 if jnp.issubdtype(a.dtype, jnp.integer) else 0)
             out[k] = jnp.pad(a, widths, constant_values=fill)
-    if "fused" in out:
-        # the transposed caches keep the row dimension on the LANE axis;
-        # pad it to match (vcT=False / validT=0 make the extra lanes
-        # identity-extended, so the fused kernel emits a harmless e0 there
-        # and the padded `valid` mask zeroes it in _postprocess)
-        fz = {}
-        for kk, vv in out["fused"].items():
-            widths = [(0, 0)] * (vv.ndim - 1) + [(0, pad)]
-            fill = False if vv.dtype == bool else 0
-            fz[kk] = jnp.pad(vv, widths, constant_values=fill)
-        out["fused"] = fz
     return out, n_all + pad
 
 
@@ -86,13 +76,6 @@ def shard_rows(mesh, plan, dev):
             spec = P("rows", *([None] * (v.ndim - 1)))
         elif k == "mf":
             out[k] = _shard_mf(mesh, v, n_dev)
-            continue
-        elif k == "fused":
-            # transposed caches: the row dimension is the LANE axis
-            out[k] = {kk: jax.device_put(
-                vv, NamedSharding(mesh, P(*([None] * (vv.ndim - 1)
-                                            + ["rows"]))))
-                for kk, vv in v.items()}
             continue
         else:
             spec = P()      # schedules/lookup tables stay replicated

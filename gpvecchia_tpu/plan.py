@@ -1,10 +1,10 @@
-"""Device-plan construction: spec -> static index structures for TPU compute.
+"""Device-plan construction: spec -> static index structures for the device.
 
 Everything here is parameter-free and cached on the spec (the analogue of the
 reference's reusable `vecchia.approx` object, /root/reference/R/vecchia_specify.R:3-5).
 The numeric path then consists purely of gathers, padded segment reductions
 and batched dense vector algebra with static shapes — no scatter-adds with
-colliding indices anywhere (those serialize on TPU).
+colliding indices anywhere (XLA serializes those).
 
 V (the reverse-ordered Cholesky factor of W = U_y U_y^T + D, reference U2V at
 /root/reference/R/vecchia_prediction.R:62-111) is represented column-wise:
@@ -890,9 +890,7 @@ def get_mf_plan(plan, leaf_elems=None):
     elem_verts = np.where(plan.cond, lr[plan.NN], -1)
     if leaf_elems is None:
         import os
-        # 128-element leaves won the round-5 sweep on the fused Pallas
-        # chain (the factor sweep's serial pivot chains shrink 4x and the
-        # kernel's node batch grows; round-4's XLA chain preferred 512)
+        # leaf size: see the leaf sweep in CHANGES.md
         leaf_elems = int(os.environ.get("GPV_MF_LEAF", 128))
     mf = build_mf_plan(elem_verts, plan.locs, plan.n_lat,
                        leaf_elems=leaf_elems)

@@ -5,7 +5,7 @@ logic (/root/reference/R/vecchia_specify.R:29-240) but produces a typed,
 padded-dense ``VecchiaSpec`` instead of CSR index vectors: the sparse U factor
 is never materialized — its latent part is exactly an (n_all, m+1) dense array
 of per-column coefficients plus the NNarray index array, which is what the
-TPU compute path consumes (see SURVEY.md section 0).
+device compute path consumes (see SURVEY.md section 0).
 
 Representation
 --------------

@@ -1,6 +1,6 @@
 """Host-side symbolic analysis (runs once per spec; NumPy).
 
-This is the TPU-native replacement for the reference's symbolic machinery
+This is the replacement for the reference's symbolic machinery
 (U_sparsity at /root/reference/R/U_sparsity.R:5-81 plus the sparse-matrix
 symbolics that the reference delegates to the R Matrix package).  It
 precomputes every static index structure the device compute path needs:

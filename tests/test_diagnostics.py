@@ -1,6 +1,6 @@
 """Numerical-failure surfacing: non-SPD conditioning rows are dropped and
-COUNTED as a value (works on every backend — the reference prints to stderr,
-/root/reference/src/U_NZentries.cpp:60-66, which the TPU plugin cannot)."""
+COUNTED as a value (works under jit on every backend — the reference prints
+to stderr, /root/reference/src/U_NZentries.cpp:60-66)."""
 
 import numpy as np
 import pytest

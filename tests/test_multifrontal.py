@@ -47,11 +47,13 @@ def _dense_W(elem_verts, u_vals, dvec, n_vert):
     return W
 
 
-@pytest.mark.parametrize("n_vert,K,leaf", [
-    (60, 5, 8),
-    pytest.param(300, 9, 16, marks=pytest.mark.slow),
-    (300, 9, 512)])
-def test_mf_against_dense(n_vert, K, leaf):
+@pytest.mark.parametrize("n_vert,K,leaf,leaf_chunks", [
+    pytest.param(60, 5, 8, 1, id="60-5-8"),
+    pytest.param(60, 5, 8, 4, id="60-5-8-chunks4"),
+    pytest.param(120, 7, 8, 2, id="120-7-8-chunks2"),
+    pytest.param(300, 9, 16, 1, marks=pytest.mark.slow, id="300-9-16"),
+    pytest.param(300, 9, 512, 1, id="300-9-512")])
+def test_mf_against_dense(n_vert, K, leaf, leaf_chunks):
     rng = np.random.default_rng(1988 + n_vert)
     elem_verts, xy, u_vals = _random_elements(rng, n_vert, K)
     dvec = rng.uniform(1.0, 3.0, size=n_vert) + 5.0 * K
@@ -59,10 +61,12 @@ def test_mf_against_dense(n_vert, K, leaf):
 
     mf = build_mf_plan(elem_verts, xy, n_vert, leaf_elems=leaf)
     static, mfdev = mf_device_arrays(mf)
+    assert (1 << static.depth) % leaf_chunks == 0
     rhs_e = rng.normal(size=n_vert)
     rhs_v = rng.normal(size=n_vert)
     fac = mf_factor(static, mfdev, jnp.asarray(u_vals), jnp.asarray(dvec),
-                    rhs_elem=jnp.asarray(rhs_e), rhs_vert=jnp.asarray(rhs_v))
+                    rhs_elem=jnp.asarray(rhs_e), rhs_vert=jnp.asarray(rhs_v),
+                    leaf_chunks=leaf_chunks)
 
     sign, logdet_ref = np.linalg.slogdet(W)
     assert sign > 0
@@ -87,7 +91,8 @@ def test_mf_against_dense(n_vert, K, leaf):
     np.testing.assert_allclose(xc, np.linalg.solve(W, c), rtol=1e-7,
                                atol=1e-10)
 
-    d = np.asarray(mf_selinv_diag(static, mfdev, fac))
+    d = np.asarray(mf_selinv_diag(static, mfdev, fac,
+                                  leaf_chunks=leaf_chunks))
     np.testing.assert_allclose(d, np.diag(np.linalg.inv(W)), rtol=1e-7)
 
 
